@@ -86,6 +86,11 @@ def main(argv=None):
                     help="--action downsampleBAM: depth target in Gb "
                          "(downsample_WGS_BAMs.pl semantics)")
     args = ap.parse_args(argv)
+    from . import device
+    device.setup_compile_cache()
+    if args.backend in device.DEVICE_BACKENDS:
+        from .utils.timing import log_progress
+        log_progress(device.device_line())
 
     action = args.action
     if action == "testBinary":

@@ -1,11 +1,11 @@
-"""PRG -> dense array compilation (the TPU-native `prepareGraph`).
+"""PRG -> dense array compilation (the dense-array `prepareGraph`).
 
 The reference serialises its pointer graph with Boost archives and computes the
 gap-edge path index at prepare time ("a few hours, up to 40 GB",
 README.md:113-117; HLA-LA.cpp:1341-1385).  Here `compile_prg` lowers a PRG to
 flat numpy arrays — CSR adjacency keyed by (level, z) coordinates plus a
 gap-jump table — stored as a single .npz.  Loading is mmap-fast and the arrays
-are directly gatherable when building fixed-shape DP windows for TPU kernels.
+are directly gatherable when building fixed-shape DP windows for device kernels.
 
 Coordinates: the DP cell space is (level x, z) where z is the index of a node
 within its level (reference: nodesPerLevel_ordered, alignerBase.cpp:27-37).

@@ -5,7 +5,7 @@ every edge connects level l -> l+1 and emits exactly one character ('_' for a
 gap column).  The reference keeps it as pointer sets (Graph.h:80-82,
 Node.h:60-89, Edge.h:30-64); here it is parsed directly into dense numpy
 arrays — node ids are level-major indices, edges live in CSR adjacency —
-which is both faster on the host and the form the TPU kernels consume.
+which is both faster on the host and the form the device kernels consume.
 
 File format (text `PRG/graph.txt`) compatibility with the reference
 (Graph.cpp:2225-2330 write, 2329-2545 read):

@@ -6,7 +6,7 @@ contigs and never reach the graph (HLA-LA.cpp:617, 742-779; the two-BAM seed
 merge processBAM.cpp:241-369 keeps only reads whose best seeds fall in the
 PRG's interesting intervals).
 
-TPU-native redesign: instead of a second bwa pass, a *decoy k-mer index*
+Redesign here: instead of a second bwa pass, a *decoy k-mer index*
 over the non-PRG genome.  At seeding time every read is scored against the
 decoy index with the same chain statistic the PRG seeder uses (distinct
 k-mers on one diagonal band); a read pair whose both mates seed strictly

@@ -6,7 +6,7 @@ compatibility DP (scores S_match=1, S_mismatch=-1, S_gap=-1, lines 13-15 +
 is three lines: "n_mismatches refStart-refStop strand0-queryEnd", the
 aligned reference string, the aligned query string (lines 487-505).
 
-TPU-native form: k-mer diagonal chains from the same index the production
+Form here: k-mer diagonal chains from the same index the production
 seeder uses; the chain DP in numpy; inter-chain and intra-chain stitching
 via the batched banded-NW kernel with unit scoring."""
 

@@ -10,7 +10,7 @@ minEditDistance_calledGenotype_truth + whichAlleles columns) and
 `genePositions.tab` (gene/exon coordinates usable for presence/absence and
 higher-resolution typing).
 
-TPU-native form: contig localisation uses the native k-mer seeder with
+Form here: contig localisation uses the native k-mer seeder with
 MULTIPLE diverse allele probes per exon (the reference maps contigs with
 bwa/minimap2+nucmer); the per-allele edit distances are ONE batched
 banded-NW call (unit scoring) over the allele panel — the same kernel as

@@ -6,7 +6,7 @@ the panel, and a diploid haplotype-pair likelihood model picks the best pair
 (`haplotypeLikelihoods`, linearALTs.h:29); reads can also be assigned to genes
 by interval overlap (`reads2Genes`, linearALTs.h:30).
 
-TPU-native form: the per-read x per-haplotype log-likelihood matrix comes
+Form here: the per-read x per-haplotype log-likelihood matrix comes
 from the same batched banded-NW kernel as the HLA path, and the diploid pair
 reduction reuses ops/pair_ll (the C^2 kernel) with haplotypes as "clusters".
 """

@@ -2,25 +2,34 @@
 
 The reference is thread-ready around its per-read-pair loop (OpenMP pragmas,
 commented out in the snapshot — processBAM.cpp:2076; typing uses
-`--maxThreads`).  Reads are i.i.d., so the TPU framework parallelises the
+`--maxThreads`).  Reads are i.i.d., so the host backend parallelises the
 host work (seeding, backtrace, projection, pair selection) across worker
 processes, each owning a full numpy ReadAligner built from the compiled
-graph package.  Workers are spawned (not forked) so they never share the
-main process's TPU client state.
+graph package.  Workers are spawned (not forked) and pinned to the CPU:
+they never open the accelerator, which one process owns.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import sys
 
 _WORKER_ALIGNER = None
+
+
+def pin_worker_to_cpu() -> None:
+    """Keep a host worker process off the accelerator."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    jax = sys.modules.get("jax")
+    if jax is not None:
+        jax.config.update("jax_platforms", "cpu")
 
 
 def _init_worker(graph_dir: str, band, kmer_k: int, long_reads: str,
                  decoy_fasta: str = "", map_complete: bool = False):
     global _WORKER_ALIGNER
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    pin_worker_to_cpu()
     from ..graph.package import GraphPackage
     from ..utils.config import RunConfig
     from .aligner import ReadAligner

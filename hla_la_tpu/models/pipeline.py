@@ -13,6 +13,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import device
 from ..graph.package import GraphPackage
 from ..io.fastq import FastqRead, read_fastq
 from ..utils.config import RunConfig
@@ -64,6 +65,13 @@ def build_decoy(pkg: GraphPackage, cfg: RunConfig):
     cache = os.path.join(pkg.dir, "mapping_PRGonly", "decoyIndex_k20.npz")
     return DecoyIndex.from_fasta(read_fasta(path), cache_path=cache,
                                  source_path=path)
+
+
+def host_workers(cfg: RunConfig, backend: str) -> int:
+    """Host worker processes for alignment and per-locus typing.  None
+    under a device backend: the one process that owns the device aligns
+    and types, so no second process opens it."""
+    return 1 if backend in device.DEVICE_BACKENDS else cfg.max_threads
 
 
 def _align_all(engine, pairs, unpaired, insert_mean, insert_sd, batch_size,
@@ -151,11 +159,16 @@ def run_hla_typing(pkg: GraphPackage,
         insert_mean, insert_sd = aligner.estimate_insert_size(pairs)
         log_progress(f"insert size estimate: mean {insert_mean}, sd {insert_sd}")
 
+    n_workers = host_workers(cfg, backend)
+    if n_workers < cfg.max_threads:
+        log_progress(f"--maxThreads {cfg.max_threads}: backend {backend!r} "
+                     f"aligns and types in this process, which owns the "
+                     f"device (no worker processes)")
     par = None
-    if cfg.max_threads > 1 and (len(pairs) + len(unpaired)) > 512:
+    if n_workers > 1 and (len(pairs) + len(unpaired)) > 512:
         from .parallel_host import ParallelAligner, spawn_safe
         if spawn_safe():
-            log_progress(f"aligning with {cfg.max_threads} worker processes")
+            log_progress(f"aligning with {n_workers} worker processes")
             par = ParallelAligner(
                 pkg.dir, cfg.max_threads, long_reads=cfg.long_reads,
                 decoy_fasta=cfg.decoy_fasta,
@@ -210,7 +223,7 @@ def _type_and_write(pkg, cfg, backend, aligned_pairs, kept_pairs,
     return typer.type_all(kept_pairs, aligned_pairs, kept_unpaired,
                           aligned_unpaired, insert_mean, insert_sd,
                           hla_dir, long_reads_mode=cfg.long_reads,
-                          n_workers=cfg.max_threads,
+                          n_workers=host_workers(cfg, backend),
                           worker_pool=worker_pool)
 
 
@@ -246,7 +259,8 @@ def align_shard(pkg: GraphPackage, pairs, unpaired, shard_dir: str,
     log_progress(f"host {host_idx}/{n_hosts}: aligning {len(my_pairs)} "
                  f"pairs + {len(my_unpaired)} unpaired")
     par = None
-    if cfg.max_threads > 1 and (len(my_pairs) + len(my_unpaired)) > 512:
+    if host_workers(cfg, backend) > 1 \
+            and (len(my_pairs) + len(my_unpaired)) > 512:
         from .parallel_host import ParallelAligner, spawn_safe
         if spawn_safe():
             par = ParallelAligner(

@@ -8,7 +8,7 @@ Pipeline per locus (HLATyper::HLATypeInference, HLATyper.cpp:933-2810):
   4. per-cluster x per-read log-likelihoods — lowered to ONE matmul over
      one-hot channel encodings (ops/pair_ll.cluster_read_ll);
   5. diploid pair likelihoods over all cluster pairs — the O(C^2 R) reduction
-     (ops/pair_ll.pair_ll_reduction; Pallas/jnp on TPU);
+     (ops/pair_ll.pair_ll_reduction; numpy, native or an XLA scan);
   6. posteriors -> bestGuess alleles (marginal for allele 1, conditional for
      allele 2 with min-mismatch tie-break);
   7. QC columns + G-group translation + output files
@@ -623,14 +623,14 @@ class HLATyper:
                          insert_mean, insert_sd, output_dir, cfg,
                          long_reads, kc_arg, hist_w))
         try:
+            # a worker's failure propagates: a typing error is never
+            # hidden behind a silent serial rerun
             if worker_pool is not None:
                 chunk_results = worker_pool.pool.map(_typing_worker, args)
             else:
                 ctx = mp.get_context("spawn")
                 with ctx.Pool(n, initializer=_typing_worker_init) as pool:
                     chunk_results = pool.map(_typing_worker, args)
-        except Exception:  # noqa: BLE001 — fall back to serial typing
-            return None
         finally:
             if kc_path is not None:
                 try:
@@ -2173,6 +2173,8 @@ def _unpack_optional_chains(t) -> list:
 
 
 def _typing_worker_init():
+    from .parallel_host import pin_worker_to_cpu
+    pin_worker_to_cpu()
     os.environ["HLA_LA_IN_WORKER"] = "1"
 
 

@@ -1,7 +1,8 @@
 """ctypes bindings for the native host runtime (native/hla_native.cpp).
 
 Every function has a pure-Python fallback; `available()` reports whether the
-shared library was found/built.  Build with `make -C native`."""
+shared library was found/built.  The library builds itself on first use,
+into native/build/<hash of source, Makefile, CPU>/ (see native/Makefile)."""
 
 from __future__ import annotations
 
@@ -14,37 +15,65 @@ _LIB = None
 _TRIED = False
 
 
-def _ensure_built(native_dir: str) -> None:
-    """Build (or rebuild) libhla_native.so when it is missing or older than
-    its source.  Fresh VMs lose the gitignored .so; without this the whole
-    host hot path silently degrades to the Python fallbacks (~10x slower).
-    Race-safe under the spawn worker pool via an exclusive flock; failures
-    are swallowed — the fallbacks remain correct."""
-    src = os.path.join(native_dir, "hla_native.cpp")
-    so = os.path.join(native_dir, "libhla_native.so")
-    if not os.path.exists(src):
-        return
+def _cpu_signature() -> str:
+    """CPU model and feature flags of this host (the library is built with
+    -march=native, so it must never be loaded on another CPU)."""
+    keep = []
     try:
-        fresh = (os.path.exists(so)
-                 and os.path.getmtime(so) >= os.path.getmtime(src))
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                key = line.split(":", 1)[0].strip()
+                if key in ("model name", "flags", "Features", "CPU part"):
+                    keep.append(line.strip())
+                if not line.strip() and keep:
+                    break          # the first processor block is enough
     except OSError:
-        fresh = False
-    if fresh:
-        return
+        import platform
+        keep.append(f"{platform.machine()} {platform.processor()}")
+    return "\n".join(keep)
+
+
+def _lib_path(native_dir: str) -> str:
+    """Build path keyed by the source, the Makefile and the host CPU."""
+    import hashlib
+    h = hashlib.sha256()
+    for name in ("hla_native.cpp", "Makefile"):
+        with open(os.path.join(native_dir, name), "rb") as fh:
+            h.update(fh.read())
+    h.update(_cpu_signature().encode())
+    return os.path.join(native_dir, "build", h.hexdigest()[:16],
+                        "libhla_native.so")
+
+
+def _ensure_built(native_dir: str) -> str | None:
+    """Path of the library built for this source and this CPU, building
+    it on first use.  Race-safe under the spawn worker pool via an
+    exclusive flock and an atomic rename; failures are swallowed (the
+    Python fallbacks remain correct) and return None."""
+    try:
+        so = _lib_path(native_dir)
+    except OSError:
+        return None
+    if os.path.exists(so):
+        return so
     import fcntl
     import subprocess
-    lock_path = os.path.join(native_dir, ".build.lock")
     try:
-        with open(lock_path, "w") as lk:
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        with open(os.path.join(native_dir, "build", ".build.lock"),
+                  "w") as lk:
             fcntl.flock(lk, fcntl.LOCK_EX)
             # another process may have finished the build while we waited
-            if (os.path.exists(so)
-                    and os.path.getmtime(so) >= os.path.getmtime(src)):
-                return
-            subprocess.run(["make", "-C", native_dir],
-                           capture_output=True, timeout=300, check=False)
+            if not os.path.exists(so):
+                tmp = f"{so}.tmp{os.getpid()}"
+                subprocess.run(["make", "-C", native_dir, f"OUT={tmp}"],
+                               capture_output=True, timeout=600,
+                               check=False)
+                if os.path.exists(tmp):
+                    os.replace(tmp, so)
     except Exception:  # noqa: BLE001 — no make/g++/flock: use fallbacks
         pass
+    return so if os.path.exists(so) else None
 
 
 def _find_lib():
@@ -54,146 +83,141 @@ def _find_lib():
     _TRIED = True
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     override = os.environ.get("HLA_NATIVE_LIB")  # e.g. the ASan build
-    if not override:
-        _ensure_built(os.path.join(here, "native"))
-    for cand in ([override] if override else []) + [
-            os.path.join(here, "native", "libhla_native.so"),
-            os.path.join(here, "libhla_native.so")]:
-        if os.path.exists(cand):
-            try:
-                lib = ctypes.CDLL(cand)
-            except OSError:
-                continue
-            try:
-                lib.hla_bgzf_inflate_all.restype = ctypes.c_int
-                lib.hla_bgzf_inflate_all.argtypes = [
-                    ctypes.c_char_p, ctypes.c_int64,
-                    ctypes.POINTER(ctypes.c_void_p),
-                    ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
-                vp, i64, i32p = (ctypes.c_void_p, ctypes.c_int64,
-                                 ctypes.POINTER(ctypes.c_int64))
-                lib.hla_bam_count.restype = ctypes.c_int64
-                lib.hla_bam_count.argtypes = [vp, i64, i32p, i32p, i32p]
-                lib.hla_bam_parse.restype = ctypes.c_int64
-                lib.hla_bam_parse.argtypes = [vp, i64] + [vp] * 14
-                lib.hla_nw_backtrace_batch.restype = None
-                lib.hla_nw_backtrace_batch.argtypes = [
-                    vp, i64, i64, i64, vp, vp, vp, vp, i64, vp]
-                f32 = ctypes.c_float
-                lib.hla_nw_forward.restype = None
-                lib.hla_nw_forward.argtypes = [
-                    vp, vp, vp, i64, i64, i64, f32, f32, f32, f32,
-                    vp, vp, vp, vp, ctypes.c_int]
-                lib.hla_free.restype = None
-                lib.hla_free.argtypes = [vp]
-                f64 = ctypes.c_double
-                i64pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_int64))
-                lib.hla_seed_chain.restype = i64
-                lib.hla_seed_chain.argtypes = (
-                    [vp, i64, vp, vp, i64, vp, i64, i64, vp, i64, vp, i64, vp]
-                    + [i64] * 5 + [i64pp] * 5)
-                lib.hla_select_pairs.restype = None
-                lib.hla_select_pairs.argtypes = (
-                    [i64] + [vp] * 11 + [i64] + [f64, f64, f64] + [vp] * 6)
-                lib.hla_walk_haplotype.restype = ctypes.c_int
-                lib.hla_walk_haplotype.argtypes = (
-                    [vp, i64] + [vp] * 8 + [i64, i64, i64, vp])
-                lib.hla_rans4x8_decode.restype = ctypes.c_int
-                lib.hla_rans4x8_decode.argtypes = [vp, i64, vp, i64]
-                lib.hla_ransnx16_decode.restype = ctypes.c_int
-                lib.hla_ransnx16_decode.argtypes = [
-                    vp, i64, i64, i64, i64, ctypes.c_int, ctypes.c_int,
-                    vp, i64, vp]
-                lib.hla_arith_decode.restype = ctypes.c_int
-                lib.hla_arith_decode.argtypes = [
-                    vp, i64, i64, vp, i64, ctypes.c_int, ctypes.c_int]
-                lib.hla_arith_encode.restype = i64
-                lib.hla_arith_encode.argtypes = [
-                    vp, i64, ctypes.c_int, ctypes.c_int, vp, i64]
-                lib.hla_ransnx16_encode.restype = i64
-                lib.hla_ransnx16_encode.argtypes = [
-                    vp, i64, vp, vp, i64, vp, ctypes.c_int, vp, i64]
-                lib.hla_fqz_encode.restype = i64
-                lib.hla_fqz_encode.argtypes = (
-                    [vp, i64, vp, i64, vp, vp, vp, ctypes.c_int,
-                     ctypes.c_int] + [vp] * 5 + [vp, i64])
-                lib.hla_fqz_decode.restype = ctypes.c_int
-                lib.hla_fqz_decode.argtypes = (
-                    [vp, i64, i64, vp, i64, ctypes.c_int, ctypes.c_int]
-                    + [vp] * 6)
-                lib.hla_itf8_decode_all.restype = i64
-                lib.hla_itf8_decode_all.argtypes = [vp, i64, vp, vp]
-                lib.hla_encode_kmers.restype = None
-                lib.hla_encode_kmers.argtypes = (
-                    [vp, i64, i64, vp, vp, ctypes.c_int])
-                lib.hla_encode_kmers_c.restype = None
-                lib.hla_encode_kmers_c.argtypes = (
-                    [vp, i64, i64, vp, vp, ctypes.c_int, ctypes.c_int])
-                lib.hla_gather_windows.restype = None
-                lib.hla_gather_windows.argtypes = (
-                    [vp] * 5 + [i64, i64, vp, ctypes.c_int])
-                lib.hla_seed_select.restype = None
-                lib.hla_seed_select.argtypes = (
-                    [vp] * 6 + [i64] * 4 + [vp] * 2)
-                lib.hla_project_count.restype = i64
-                lib.hla_project_count.argtypes = [vp] * 7 + [i64, i64, vp, vp]
-                lib.hla_project_fill.restype = None
-                lib.hla_project_fill.argtypes = (
-                    [vp] * 6 + [i64] + [vp] * 3 + [i64, i64] + [vp] * 5
-                    + [f64, f64] + [vp] * 9 + [ctypes.c_int])
-                lib.hla_graph_extend.restype = i64
-                lib.hla_graph_extend.argtypes = (
-                    [vp] * 17 + [i64, i64, vp, i64, i64, i64, i64,
-                    ctypes.c_int, i64, i64] + [f64] * 6 + [i64, f64]
-                    + [vp] * 3 + [i64, vp, vp])
-                lib.hla_pair_ll.restype = None
-                lib.hla_pair_ll.argtypes = [vp, i64, i64, vp,
-                                            ctypes.c_int]
-                lib.hla_pair_ll_f32.restype = None
-                lib.hla_pair_ll_f32.argtypes = [vp, i64, i64, vp,
-                                                ctypes.c_int]
-                lib.hla_cluster_ll_delta.restype = None
-                lib.hla_cluster_ll_delta.argtypes = (
-                    [vp] * 6 + [i64, i64, i64, i64, vp, vp, ctypes.c_int])
-                u64pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint64))
-                lib.hla_kmer_count_build.restype = i64
-                lib.hla_kmer_count_build.argtypes = [
-                    vp, i64, i64, ctypes.c_int, u64pp, i64pp]
-                u8pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
-                i32pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_int32))
-                lib.hla_parse_prg_nodes.restype = i64
-                lib.hla_parse_prg_nodes.argtypes = [
-                    vp, i64, ctypes.c_int, i64pp, i64pp, u8pp]
-                lib.hla_parse_prg_edges.restype = i64
-                lib.hla_parse_prg_edges.argtypes = [
-                    vp, i64, ctypes.c_int, i64pp, i64pp, u8pp, i32pp,
-                    u8pp, u8pp, i64pp, ctypes.POINTER(i64),
-                    u8pp, i64pp, ctypes.POINTER(i64)]
-                lib.hla_parse_prg_code.restype = i64
-                lib.hla_parse_prg_code.argtypes = [
-                    vp, i64, ctypes.c_int, vp, vp, i64,
-                    i64pp, i64pp, u8pp, i64pp]
-                lib.hla_chain_record.restype = i64
-                lib.hla_chain_record.argtypes = (
-                    [vp] * 5 + [i64] + [vp, vp, i64] + [vp] * 10)
-                lib.hla_build_read_tensors.restype = None
-                lib.hla_build_read_tensors.argtypes = (
-                    [vp] * 4 + [i64] + [vp] * 7 + [f64, i64, i64,
-                    ctypes.c_int, vp, vp, ctypes.c_int])
-                lib.hla_repr_double.restype = ctypes.c_int
-                lib.hla_repr_double.argtypes = [f64, vp]
-                lib.hla_format_pairs.restype = ctypes.c_int
-                lib.hla_format_pairs.argtypes = (
-                    [vp] * 5 + [i64, vp, vp, i64,
-                    ctypes.POINTER(ctypes.c_void_p),
-                    ctypes.POINTER(ctypes.c_int64), ctypes.c_int])
-            except AttributeError:
-                # stale previously-built .so missing a newer symbol:
-                # treat as unusable and fall back (next candidate or
-                # pure Python) instead of crashing available()
-                continue
-            _LIB = lib
-            break
+    cand = override or _ensure_built(os.path.join(here, "native"))
+    if not cand or not os.path.exists(cand):
+        return None
+    try:
+        lib = ctypes.CDLL(cand)
+    except OSError:
+        return None
+    try:
+        lib.hla_bgzf_inflate_all.restype = ctypes.c_int
+        lib.hla_bgzf_inflate_all.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
+        vp, i64, i32p = (ctypes.c_void_p, ctypes.c_int64,
+                         ctypes.POINTER(ctypes.c_int64))
+        lib.hla_bam_count.restype = ctypes.c_int64
+        lib.hla_bam_count.argtypes = [vp, i64, i32p, i32p, i32p]
+        lib.hla_bam_parse.restype = ctypes.c_int64
+        lib.hla_bam_parse.argtypes = [vp, i64] + [vp] * 14
+        lib.hla_nw_backtrace_batch.restype = None
+        lib.hla_nw_backtrace_batch.argtypes = [
+            vp, i64, i64, i64, vp, vp, vp, vp, i64, vp]
+        f32 = ctypes.c_float
+        lib.hla_nw_forward.restype = None
+        lib.hla_nw_forward.argtypes = [
+            vp, vp, vp, i64, i64, i64, f32, f32, f32, f32,
+            vp, vp, vp, vp, ctypes.c_int]
+        lib.hla_free.restype = None
+        lib.hla_free.argtypes = [vp]
+        f64 = ctypes.c_double
+        i64pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_int64))
+        lib.hla_seed_chain.restype = i64
+        lib.hla_seed_chain.argtypes = (
+            [vp, i64, vp, vp, i64, vp, i64, i64, vp, i64, vp, i64, vp]
+            + [i64] * 5 + [i64pp] * 5)
+        lib.hla_select_pairs.restype = None
+        lib.hla_select_pairs.argtypes = (
+            [i64] + [vp] * 11 + [i64] + [f64, f64, f64] + [vp] * 6)
+        lib.hla_walk_haplotype.restype = ctypes.c_int
+        lib.hla_walk_haplotype.argtypes = (
+            [vp, i64] + [vp] * 8 + [i64, i64, i64, vp])
+        lib.hla_rans4x8_decode.restype = ctypes.c_int
+        lib.hla_rans4x8_decode.argtypes = [vp, i64, vp, i64]
+        lib.hla_ransnx16_decode.restype = ctypes.c_int
+        lib.hla_ransnx16_decode.argtypes = [
+            vp, i64, i64, i64, i64, ctypes.c_int, ctypes.c_int,
+            vp, i64, vp]
+        lib.hla_arith_decode.restype = ctypes.c_int
+        lib.hla_arith_decode.argtypes = [
+            vp, i64, i64, vp, i64, ctypes.c_int, ctypes.c_int]
+        lib.hla_arith_encode.restype = i64
+        lib.hla_arith_encode.argtypes = [
+            vp, i64, ctypes.c_int, ctypes.c_int, vp, i64]
+        lib.hla_ransnx16_encode.restype = i64
+        lib.hla_ransnx16_encode.argtypes = [
+            vp, i64, vp, vp, i64, vp, ctypes.c_int, vp, i64]
+        lib.hla_fqz_encode.restype = i64
+        lib.hla_fqz_encode.argtypes = (
+            [vp, i64, vp, i64, vp, vp, vp, ctypes.c_int,
+             ctypes.c_int] + [vp] * 5 + [vp, i64])
+        lib.hla_fqz_decode.restype = ctypes.c_int
+        lib.hla_fqz_decode.argtypes = (
+            [vp, i64, i64, vp, i64, ctypes.c_int, ctypes.c_int]
+            + [vp] * 6)
+        lib.hla_itf8_decode_all.restype = i64
+        lib.hla_itf8_decode_all.argtypes = [vp, i64, vp, vp]
+        lib.hla_encode_kmers.restype = None
+        lib.hla_encode_kmers.argtypes = (
+            [vp, i64, i64, vp, vp, ctypes.c_int])
+        lib.hla_encode_kmers_c.restype = None
+        lib.hla_encode_kmers_c.argtypes = (
+            [vp, i64, i64, vp, vp, ctypes.c_int, ctypes.c_int])
+        lib.hla_gather_windows.restype = None
+        lib.hla_gather_windows.argtypes = (
+            [vp] * 5 + [i64, i64, vp, ctypes.c_int])
+        lib.hla_seed_select.restype = None
+        lib.hla_seed_select.argtypes = (
+            [vp] * 6 + [i64] * 4 + [vp] * 2)
+        lib.hla_project_count.restype = i64
+        lib.hla_project_count.argtypes = [vp] * 7 + [i64, i64, vp, vp]
+        lib.hla_project_fill.restype = None
+        lib.hla_project_fill.argtypes = (
+            [vp] * 6 + [i64] + [vp] * 3 + [i64, i64] + [vp] * 5
+            + [f64, f64] + [vp] * 9 + [ctypes.c_int])
+        lib.hla_graph_extend.restype = i64
+        lib.hla_graph_extend.argtypes = (
+            [vp] * 17 + [i64, i64, vp, i64, i64, i64, i64,
+            ctypes.c_int, i64, i64] + [f64] * 6 + [i64, f64]
+            + [vp] * 3 + [i64, vp, vp])
+        lib.hla_pair_ll.restype = None
+        lib.hla_pair_ll.argtypes = [vp, i64, i64, vp,
+                                    ctypes.c_int]
+        lib.hla_pair_ll_f32.restype = None
+        lib.hla_pair_ll_f32.argtypes = [vp, i64, i64, vp,
+                                        ctypes.c_int]
+        lib.hla_cluster_ll_delta.restype = None
+        lib.hla_cluster_ll_delta.argtypes = (
+            [vp] * 6 + [i64, i64, i64, i64, vp, vp, ctypes.c_int])
+        u64pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint64))
+        lib.hla_kmer_count_build.restype = i64
+        lib.hla_kmer_count_build.argtypes = [
+            vp, i64, i64, ctypes.c_int, u64pp, i64pp]
+        u8pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
+        i32pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_int32))
+        lib.hla_parse_prg_nodes.restype = i64
+        lib.hla_parse_prg_nodes.argtypes = [
+            vp, i64, ctypes.c_int, i64pp, i64pp, u8pp]
+        lib.hla_parse_prg_edges.restype = i64
+        lib.hla_parse_prg_edges.argtypes = [
+            vp, i64, ctypes.c_int, i64pp, i64pp, u8pp, i32pp,
+            u8pp, u8pp, i64pp, ctypes.POINTER(i64),
+            u8pp, i64pp, ctypes.POINTER(i64)]
+        lib.hla_parse_prg_code.restype = i64
+        lib.hla_parse_prg_code.argtypes = [
+            vp, i64, ctypes.c_int, vp, vp, i64,
+            i64pp, i64pp, u8pp, i64pp]
+        lib.hla_chain_record.restype = i64
+        lib.hla_chain_record.argtypes = (
+            [vp] * 5 + [i64] + [vp, vp, i64] + [vp] * 10)
+        lib.hla_build_read_tensors.restype = None
+        lib.hla_build_read_tensors.argtypes = (
+            [vp] * 4 + [i64] + [vp] * 7 + [f64, i64, i64,
+            ctypes.c_int, vp, vp, ctypes.c_int])
+        lib.hla_repr_double.restype = ctypes.c_int
+        lib.hla_repr_double.argtypes = [f64, vp]
+        lib.hla_format_pairs.restype = ctypes.c_int
+        lib.hla_format_pairs.argtypes = (
+            [vp] * 5 + [i64, vp, vp, i64,
+            ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int])
+    except AttributeError:
+        # a library missing a newer symbol (an old HLA_NATIVE_LIB build):
+        # unusable, so the pure-Python fallbacks serve instead
+        return None
+    _LIB = lib
     return _LIB
 
 

@@ -1,6 +1,6 @@
 """Batched banded glocal affine-gap Needleman-Wunsch (read vs haplotype window).
 
-TPU-first redesign of the reference's extension DP: the reference runs a
+Batched redesign of the reference's extension DP: the reference runs a
 dynamic, sparsely-banded 3-state NW *over the graph* per read
 (fullNeedleman_diagonal_extension_gapJumper, extensionAligner.cpp:335-1557).
 Here the whole read is instead aligned to the *linearized haplotype window*

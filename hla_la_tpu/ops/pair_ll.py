@@ -1,19 +1,19 @@
-"""TPU kernels for the HLA typing likelihood model.
+"""Device kernels for the HLA typing likelihood model.
 
 Two hot ops (SURVEY.md §7 'hard part #2'; reference: HLATyper.cpp:2000-2364):
 
 1. cluster_read_ll — per-cluster x per-read log-likelihoods.  The reference
    loops clusters x reads x positions over strings (HLATyper.cpp:2089-2277).
-   TPU-native form: each read's pileup observations are lowered to a dense
+   Dense form: each read's pileup observations are lowered to a dense
    [R, J, 6] tensor of per-channel log-likelihood contributions (channels =
    cluster column being A/C/G/T/gap/other); cluster sequences become a one-hot
-   [C, J, 6].  Then LL = onehot . T — ONE MXU matmul of shape
+   [C, J, 6].  Then LL = onehot . T — ONE matmul of shape
    [C, J*6] @ [J*6, R].  Mismatch counts come from a second matmul.
 
 2. pair_ll_reduction — diploid pair log-likelihoods
    LL[c1,c2] = sum_r logavg(L[c1,r], L[c2,r])  (HLATyper.cpp:2280-2364,
    the reference's only OpenMP-parallel loop).  O(C^2 R) elementwise work,
-   computed in R-chunks (jnp) or as a Pallas VMEM-tiled kernel.
+   computed in R-chunks (numpy, the native kernel, or an XLA scan).
 """
 
 from __future__ import annotations
@@ -155,11 +155,15 @@ def cluster_read_ll(onehot: np.ndarray, contrib: np.ndarray,
         # to host->device transfer of the contribution tensors; the device
         # path only pays off when explicitly requested on real batches
         return A @ Bc, A @ Bm
+    import jax
     import jax.numpy as jnp
+    # full f32 products: on a GPU the default f32 matmul may run in TF32,
+    # which keeps about three decimal digits of the LL values
+    hi = jax.lax.Precision.HIGHEST
     ll = jnp.dot(jnp.asarray(A), jnp.asarray(Bc),
-                 preferred_element_type=jnp.float32)
+                 preferred_element_type=jnp.float32, precision=hi)
     mm = jnp.dot(jnp.asarray(A), jnp.asarray(Bm),
-                 preferred_element_type=jnp.float32)
+                 preferred_element_type=jnp.float32, precision=hi)
     return np.asarray(ll), np.asarray(mm)
 
 
@@ -186,10 +190,10 @@ import functools
 @functools.lru_cache(maxsize=16)
 def make_pair_ll_jax(C: int, R: int, chunk: int = 512):
     """jit-compiled pair reduction: lax.scan over read chunks of the shared
-    [C, R] likelihood matrix.  Decomposition used on TPU:
+    [C, R] likelihood matrix.  Decomposition:
       logavg(a,b) = (a+b)/2 + |a-b|/2 + log1p(exp(-|a-b|)) + log(1/2)
     where sum_r (a+b)/2 is a rank-1 term from row sums (cheap) and the rest is
-    elementwise over [C, C, chunk] tiles (VPU-bound)."""
+    elementwise over [C, C, chunk] tiles."""
     import jax
     import jax.numpy as jnp
 
@@ -218,10 +222,8 @@ def pair_ll_reduction(L: np.ndarray, backend: str = "auto",
                       chunk: int = 256) -> np.ndarray:
     if backend == "auto":
         # small jobs keep the numpy reference path (byte-stable outputs);
-        # big ones go to the native AVX-512 kernel (~9 Gcells/s on 4
-        # cores, measured at C=2200 x R=16k) or, without the native lib,
-        # the XLA scan (~0.8 Gcells/s CPU / 287 on TPU v5e with
-        # on-device data)
+        # big ones go to the native AVX-512 kernel or, without the native
+        # lib, the XLA scan
         C, R = L.shape if L.ndim == 2 else (0, 0)
         if C * C * R <= 1e7:
             backend = "numpy"
@@ -237,9 +239,6 @@ def pair_ll_reduction(L: np.ndarray, backend: str = "auto",
         backend = "jax"          # lib missing: fall through
     if backend == "numpy" or L.size == 0:
         return pair_ll_reduction_numpy(L, chunk)
-    if backend == "pallas":
-        from .pallas_pair import pair_ll_reduction_pallas
-        return pair_ll_reduction_pallas(L)
     if backend == "sharded":
         from ..parallel.mesh import pair_ll_reduction_sharded
         return pair_ll_reduction_sharded(L)

@@ -1,12 +1,12 @@
-"""Multi-chip scale-out: mesh construction and sharded compute steps.
+"""Multi-device scale-out: mesh construction and sharded compute steps.
 
 The reference has no distributed backend — its parallelism is OpenMP over
 allele-cluster pairs (HLATyper.cpp:2293-2364) and thread-ready (but serial)
-per-read loops (SURVEY.md §2.3).  The TPU-native replacement:
+per-read loops (SURVEY.md §2.3).  The device replacement:
 
   * axis "data"  — reads are i.i.d. work items; read batches and the [R, J6]
     pileup tensors shard across it; per-pair partial likelihood sums are
-    reduced with psum over ICI.
+    reduced with psum.
   * axis "model" — allele clusters shard across it for the O(C^2 R) pair
     reduction; the [C_local, R_local] likelihood tile is all-gathered over
     "model" (C is small) so each device owns a [C/m, C] pair tile.
@@ -53,7 +53,8 @@ def sharded_typing_step(mesh):
     def step(onehot_l, contrib_l):
         # [C/m, K] x [K, R/d] -> local likelihood tile
         ll_l = jnp.dot(onehot_l, contrib_l.T,
-                       preferred_element_type=jnp.float32)   # [C/m, R/d]
+                       preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)  # [C/m, R/d]
         # full-C view of the local reads for the pair tile
         ll_full = jax.lax.all_gather(ll_l, "model", axis=0,
                                      tiled=True)             # [C, R/d]
@@ -99,9 +100,9 @@ def sharded_align_step(mesh, L: int, W: int, full_outputs: bool = False):
     import jax
     from jax.sharding import PartitionSpec as P
     from jax import shard_map
-    from ..ops.banded_nw import make_jax_banded_nw
+    from ..device import nw_forward
 
-    fwd = make_jax_banded_nw(L, W)
+    fwd = nw_forward(L, W)
 
     out_specs = ((P("data"), P("data"), P("data"), P("data", None, None))
                  if full_outputs else P("data"))
@@ -153,9 +154,9 @@ def full_step(mesh, L: int, W: int):
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
     from jax import shard_map
-    from ..ops.banded_nw import make_jax_banded_nw
+    from ..device import nw_forward
 
-    fwd = make_jax_banded_nw(L, W)
+    fwd = nw_forward(L, W)
 
     @partial(shard_map, mesh=mesh, check_vma=False,
              in_specs=(P("data", None), P("data"), P("data", None),
@@ -164,7 +165,8 @@ def full_step(mesh, L: int, W: int):
     def step(reads_l, lens_l, refs_l, onehot_l, contrib_l):
         scores, _, _, _ = fwd(reads_l, lens_l, refs_l)
         ll_l = jnp.dot(onehot_l, contrib_l.T,
-                       preferred_element_type=jnp.float32)
+                       preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
         ll_full = jax.lax.all_gather(ll_l, "model", axis=0, tiled=True)
         a = ll_l[:, None, :]
         b = ll_full[None, :, :]

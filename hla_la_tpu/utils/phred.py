@@ -5,7 +5,7 @@ DiltheyLab/HLA-LA): quality characters are ASCII phred+33; a quality byte of 0
 maps to pCorrect = -1 (sentinel meaning "no quality available").
 
 Vectorised variants return lookup tables indexed by the raw quality byte so
-that batched TPU code can convert whole [B, L] uint8 arrays with one gather.
+that batched device code can convert whole [B, L] uint8 arrays with one gather.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The reference prints timestamped progress lines (Utilities::timestamp used
 throughout processBAM.cpp) and keeps an aligner::statistics counter struct
 (mapper/aligner/statistics.h).  This module provides the same observability
-surface for the TPU pipeline.
+surface for this pipeline.
 """
 
 from __future__ import annotations

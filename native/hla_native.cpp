@@ -1,14 +1,14 @@
 // Native host runtime for hla_la_tpu.
 //
 // The reference implements its entire host pipeline in C++ (BamTools I/O,
-// processBAM record handling, extensionAligner backtrace).  Here the TPU
+// processBAM record handling, extensionAligner backtrace).  Here the
 // framework keeps compute on the device and implements the host-side hot
 // loops natively: BGZF block inflation, BAM record parsing into packed
 // arrays, and batched banded-NW backtrace.  Exposed via a plain C ABI and
 // loaded from Python with ctypes (hla_la_tpu/native.py); every entry point
 // has a pure-Python fallback.
 //
-// Build: make -C native   (produces libhla_native.so)
+// Build: hla_la_tpu/native.py builds it on first use (see native/Makefile)
 
 #include <charconv>
 #include <cmath>

@@ -19,8 +19,7 @@ Usage: python stress_imgt.py [--fresh] [--full-numpy] [--skip-kernels]
 (--skip-kernels: skip the backend kernel-timing section — the numpy
 extrapolation slice alone costs ~10 min on a contended VM)
 Cache: /tmp/hla_imgt_stress_v1.  Not in the pytest suite (minutes);
-run after invasive typer/pair_ll changes.  Results logged in
-docs/ROADMAP.md (round 3).
+run after invasive typer/pair_ll changes.
 """
 import os
 import pickle
@@ -205,10 +204,10 @@ def time_sharded_reduction(C: int, R: int):
             f"sharded/native mismatch: max abs {d_nat.max():.3g}"
         msg += f"; |sharded-native(f64)| max abs {d_nat.max():.3g}"
     log(msg)
-    # virtual-mesh context (bench_scaling.py honesty rule): 8 devices on
-    # 4 physical cores measure CORRECTNESS + memory shape, not speedup
-    log("context: virtual mesh is core-bound on this 4-core VM — the "
-        "number above is a correctness/memory proof, not ICI scaling")
+    # a virtual CPU mesh measures correctness and memory shape, not
+    # speedup (its devices share the host's cores)
+    log("context: virtual CPU mesh — the number above is a "
+        "correctness/memory proof, not multi-device scaling")
     return t_warm
 
 

@@ -20,7 +20,7 @@ mode at its real working point:
 
 Usage: python stress_long.py [--fresh]
 Cache: /tmp/hla_long_stress_v1 (reads + truth; the package is bench's).
-Not in the pytest suite (minutes).  Results logged in docs/ROADMAP.md.
+Not in the pytest suite (minutes).
 """
 import os
 import pickle

@@ -144,8 +144,7 @@ def test_native_matches_numpy(rng, W):
 
 def test_jax_scan_nw_n_bases_parity(rng):
     """XLA-scan variant: segmented cummax must match the sequential
-    recurrence on N-containing sequences (same regression class as the
-    Pallas kernel)."""
+    recurrence on N-containing sequences."""
     import numpy as np
 
     from hla_la_tpu.ops.banded_nw import banded_nw_forward, \

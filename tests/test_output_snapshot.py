@@ -7,7 +7,7 @@ import os
 
 import pytest
 
-from tests._golden_gen import GOLDEN, SNAPSHOT_FILES, generate
+from _golden_gen import GOLDEN, SNAPSHOT_FILES, generate
 
 
 @pytest.mark.skipif(not os.path.isdir(GOLDEN), reason="no golden snapshot")

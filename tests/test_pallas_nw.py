@@ -1,12 +1,13 @@
-"""Pallas NW kernel vs the numpy reference: identical scores/ends, and
-identical backtraces for alignable reads (pointer bits may differ only in
-unreachable NEG cells — mid-window ref pads never occur in real windows)."""
+"""The device banded-NW forward (device.nw_forward, the XLA scan of
+ops/banded_nw) vs the numpy reference: identical scores, end cells and
+pointer bits on every row with an alignment.  The gpu-marked test at the
+end runs the same comparison compiled on the card."""
 
 import numpy as np
 import pytest
 
+from hla_la_tpu.device import nw_forward
 from hla_la_tpu.ops.banded_nw import banded_nw_backtrace, banded_nw_forward
-from hla_la_tpu.ops.pallas_nw import make_pallas_banded_nw
 
 
 def _world(rng, B=40, L=24, W=16):
@@ -19,108 +20,83 @@ def _world(rng, B=40, L=24, W=16):
     return reads, refs, lens
 
 
-def test_pallas_nw_matches_numpy(rng):
-    B, L, W = 40, 24, 16
-    reads, refs, lens = _world(rng, B, L, W)
-    want = banded_nw_forward(reads, lens, refs, use_native=False)
-    fwd = make_pallas_banded_nw(L, W, interpret=True, tb=8)
-    got = tuple(np.asarray(x) for x in fwd(reads, lens, refs))
+def _assert_same(got, want):
+    # fully unalignable rows (score ~ NEG) may tie-break their end cell
+    # differently; the aligner discards them (score <= -1e29 -> None)
     ok = want[0] > -1e29
-    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
-    np.testing.assert_array_equal(got[1][ok], want[1][ok])
-    np.testing.assert_array_equal(got[2][ok], want[2][ok])
-    # backtraces must agree wherever an alignment exists
-    for b in np.nonzero(ok)[0]:
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g)[ok], w[ok])
+
+
+@pytest.mark.parametrize("B,L,W", [(40, 32, 16), (64, 16, 8)])
+def test_pallas_nw_matches_numpy(rng, B, L, W):
+    reads, refs, lens = _world(rng, B, L, W)
+    lens[0] = 0                 # empty read: harvested at row 0
+    want = banded_nw_forward(reads, lens, refs, use_native=False)
+    got = tuple(np.asarray(x) for x in nw_forward(L, W)(reads, lens, refs))
+    _assert_same(got, want)
+    # backtraces agree wherever an alignment exists
+    for b in np.nonzero(want[0] > -1e29)[0]:
         ops_a = banded_nw_backtrace(got[3][b], int(lens[b]), int(got[1][b]),
                                     int(got[2][b]))
-        ops_b = banded_nw_backtrace(want[3][b], int(lens[b]), int(want[1][b]),
-                                    int(want[2][b]))
+        ops_b = banded_nw_backtrace(want[3][b], int(lens[b]),
+                                    int(want[1][b]), int(want[2][b]))
         assert ops_a == ops_b, b
 
 
-def test_pallas_nw_uneven_batch(rng):
-    # batch not a multiple of the lane tile
-    B, L, W = 13, 16, 8
+@pytest.mark.parametrize("B", [13, 1])
+def test_pallas_nw_uneven_batch(rng, B):
+    # a batch of no particular size keeps the [B, L+1, W] uint8 contract
+    L, W = 16, 8
     reads, refs, lens = _world(rng, B, L, W)
     want = banded_nw_forward(reads, lens, refs, use_native=False)
-    fwd = make_pallas_banded_nw(L, W, interpret=True, tb=8)
-    got = tuple(np.asarray(x) for x in fwd(reads, lens, refs))
-    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
-    assert got[3].shape == want[3].shape
+    got = tuple(np.asarray(x) for x in nw_forward(L, W)(reads, lens, refs))
+    assert got[3].shape == want[3].shape == (B, L + 1, W)
+    assert got[3].dtype == np.uint8
+    _assert_same(got, want)
 
 
 def test_pallas_nw_n_bases_parity(rng):
-    """Reads/refs containing N (code 4) mid-sequence: the segmented cummax
-    must not let deletion chains cross masked reference positions
-    (regression: the unsegmented closed form diverged from the sequential
-    recurrence on N-containing references)."""
-    import numpy as np
-
-    from hla_la_tpu.ops.banded_nw import banded_nw_forward
-    from hla_la_tpu.ops.pallas_nw import make_pallas_banded_nw
-
-    Bk, Lk, Wk = 96, 64, 16
+    """Reads/refs containing N (code 4) mid-sequence: a deletion run must
+    not cross a masked reference position (the sequential recurrence of
+    the reference)."""
+    Bk, Lk, Wk = 48, 64, 16
     reads = rng.integers(0, 5, (Bk, Lk)).astype(np.uint8)
     refs = rng.integers(0, 5, (Bk, Lk + Wk)).astype(np.uint8)
     lens = rng.integers(20, Lk + 1, Bk).astype(np.int64)
-    nw = make_pallas_banded_nw(Lk, Wk, interpret=True)
-    s_j, k_j, st_j, p_j = (np.asarray(x) for x in nw(reads, lens, refs))
-    s_p, k_p, st_p, p_p = banded_nw_forward(reads, lens, refs,
-                                            use_native=False)
-    assert np.allclose(s_j, s_p, atol=1e-4)
-    # fully-unalignable rows (score ~ NEG) have arbitrary tie-broken
-    # end cells across implementations; production discards them
-    # (aligner: scores <= -1e29 -> None)
-    live = s_p > -1e29
-    assert (k_j == k_p)[live].all() and (st_j == st_p)[live].all()
-    assert (p_j == p_p)[live].all()
-
-
-def test_long_read_kernel_parity():
-    """The row-chunked long-read kernel (make_pallas_banded_nw_long) must
-    match the reference forward exactly — scores, end_k/state, pointer
-    bits — incl. N bases, masked ref positions, an empty read, and lane
-    ends spread across row chunks.  Runs in interpret mode (the real-chip
-    record lives in docs/ROADMAP.md round 5)."""
-    import numpy as np
-
-    from hla_la_tpu.ops.banded_nw import banded_nw_forward
-    from hla_la_tpu.ops.pallas_nw import make_pallas_banded_nw_long
-
-    rng = np.random.default_rng(5)
-    L, W, RC = 64, 16, 16
-    B = 7
-    refs = rng.integers(0, 4, (B, L + W)).astype(np.uint8)
-    reads = np.empty((B, L), np.uint8)
-    lens = rng.integers(L // 2, L + 1, B).astype(np.int64)
-    for b in range(B):
-        pos = W // 2
-        out = []
-        while len(out) < L and pos < L + W - 1:
-            r = rng.random()
-            if r < 0.05:
-                pos += 1
-                continue
-            if r < 0.1:
-                out.append(rng.integers(0, 4))
-                continue
-            c = refs[b, pos]
-            if rng.random() < 0.05:
-                c = (c + 1) % 4
-            out.append(c)
-            pos += 1
-        while len(out) < L:
-            out.append(0)
-        reads[b] = out
-    reads[0, 10:13] = 5     # N bases in the read
-    refs[2, 20:24] = 4      # masked ref positions (unalignable wall)
-    lens[3] = 0             # empty read
-
-    fwd = make_pallas_banded_nw_long(L, W, rc=RC, interpret=True)
-    got = fwd(reads, lens, refs)
+    got = tuple(np.asarray(x)
+                for x in nw_forward(Lk, Wk)(reads, lens, refs))
     want = banded_nw_forward(reads, lens, refs, use_native=False)
-    assert np.allclose(np.asarray(got[0]),
-                       np.asarray(want[0]).astype(np.float32), atol=1e-4)
-    assert np.array_equal(np.asarray(got[1]), np.asarray(want[1]))
-    assert np.array_equal(np.asarray(got[2]), np.asarray(want[2]))
-    assert np.array_equal(np.asarray(got[3]), np.asarray(want[3]))
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("L,W", [(128, 32), (256, 32)])
+def test_pallas_nw_lowers_for_cuda(L, W):
+    """The device NW lowers for the GPU at the aligner's real shapes as
+    plain XLA (the GPU compiler itself runs only on the card)."""
+    import jax
+    B = 4096
+    lowered = jax.jit(nw_forward(L, W)).trace(
+        np.zeros((B, L), np.uint8), np.zeros(B, np.int32),
+        np.zeros((B, L + W), np.uint8)).lower(lowering_platforms=("cuda",))
+    text = lowered.as_text()
+    assert "stablehlo.while" in text
+    assert "custom_call" not in text
+
+
+@pytest.fixture
+def gpu():
+    import jax
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU (run with JAX_PLATFORMS=cuda -m gpu)")
+    return jax.devices()[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,W,B", [(128, 32, 1000), (256, 32, 4096)])
+def test_pallas_nw_compiled_on_gpu(rng, gpu, L, W, B):
+    reads, refs, lens = _world(rng, B, L, W)
+    want = banded_nw_forward(reads, lens, refs, use_native=False)
+    got = nw_forward(L, W)(reads, lens, refs)
+    assert next(iter(got[0].devices())) == gpu
+    _assert_same(got, want)

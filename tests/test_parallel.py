@@ -132,7 +132,7 @@ def test_sharded_pair_reduction_nontoy_shape():
     R=1024 exercises the chunked read scan + model-axis padding at a
     cluster count where the per-device [C/m, C, chunk] tile matters;
     the full IMGT-shape proof (C=2200 x R=16.5k) lives in
-    `stress_imgt.py --sharded` (SHARDED_IMGT_r05.json)."""
+    `stress_imgt.py --sharded`."""
     import numpy as np
 
     from hla_la_tpu.ops.pair_ll import pair_ll_reduction_numpy

@@ -132,16 +132,6 @@ def test_chi2_and_canonical():
     assert 0 < p < 1
 
 
-def test_pair_reduction_pallas_interpret_matches_numpy():
-    from hla_la_tpu.ops.pallas_pair import pair_ll_reduction_pallas
-    rng = np.random.default_rng(5)
-    C, R = 19, 45
-    L = rng.normal(-30, 5, (C, R))
-    want = pair_ll_reduction_numpy(L)
-    got = pair_ll_reduction_pallas(L, tc=8, tr=16)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
-
-
 def test_filter_first20_tied_weights_keep_both_alleles():
     """filterFirst20 with >= N observations ALL at the same weight (clean
     reads, weightedOK == 1.0) must not erase a true allele just because
